@@ -1,3 +1,3 @@
 #!/bin/bash
-# Build the ddlo-tpu image from the repo root (reference: docker/build.sh)
-cd "$(dirname "$0")/.." && docker build --tag ddlo-tpu -f docker/Dockerfile "$@" .
+# Build the ddlo image from the repo root (reference: docker/build.sh)
+cd "$(dirname "$0")/.." && docker build --tag ddlo -f docker/Dockerfile "$@" .

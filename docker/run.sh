@@ -1,8 +1,6 @@
 #!/bin/bash
-# Run the ddlo-tpu container on a TPU VM (reference: docker/run.sh).
-# TPU access needs privileged mode + the host network for libtpu.
-docker run --net=host -it --rm \
-           --privileged \
+# Run the ddlo container with the host's GPUs (reference: docker/run.sh).
+# Arguments go to the `ddlo` entry point, e.g. docker/run.sh run --help
+docker run -it --rm --gpus all \
            -v "$(pwd)":/data -w /data \
-           "$@" \
-           ddlo-tpu
+           ddlo "$@"

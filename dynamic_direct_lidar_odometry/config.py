@@ -1,0 +1,603 @@
+"""Typed configuration tree for the DDLO pipeline.
+
+Mirrors the reference's rosparam namespaces (``odomNode/*``, ``mapNode/*``)
+so that the reference YAML configs (``cfg/ddlo.yaml``, ``cfg/DOALS.yaml``,
+see reference ``src/odometry/odom.cc:196-252``,
+``src/detection/detection.cpp:72-129``, ``src/tracking/tracking.cpp:16-25``,
+``src/odometry/map.cc:52-62``) port 1:1 via :func:`load_config`.
+
+On top of the reference parameters, this config adds the *capacity* knobs
+that a statically-shaped accelerator implementation needs (max points per scan, max
+keyframes, max objects, max tracks, ...). Dynamic sizes in the reference
+(PCL resizing, std::vector growth) become fixed-capacity buffers + masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional
+
+# ---------------------------------------------------------------------------
+# Sub-configs, one per reference parameter namespace
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DownsamplingConfig:
+    """Row/col index mask over an organized cloud (odom.cc:124-130)."""
+
+    use: bool = True
+    row: int = 1
+    col: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CropBoxConfig:
+    """Negative crop: remove points inside [-size, size]^3 (odom.cc:114-119)."""
+
+    use: bool = True
+    size: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelFilterConfig:
+    use: bool = True
+    res: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessingConfig:
+    downsampling: DownsamplingConfig = DownsamplingConfig()
+    crop_box: CropBoxConfig = CropBoxConfig()
+    voxel_scan: VoxelFilterConfig = VoxelFilterConfig(res=0.1)
+    voxel_submap: VoxelFilterConfig = VoxelFilterConfig(res=0.1)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyframeConfig:
+    """Keyframe insertion thresholds (odom.cc:206-207).
+
+    ``thresh_dist`` is adaptive at runtime from the spaciousness metric
+    (odom.cc:1156-1178); this value is the initial one.
+    ``thresh_rot`` is in degrees.
+    """
+
+    thresh_dist: float = 1.0
+    thresh_rot: float = 45.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SubmapConfig:
+    """Submap selection k's (odom.cc:210-212)."""
+
+    knn: int = 10
+    kcv: int = 10
+    kcc: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class GICPStageConfig:
+    """One NanoGICP instance's settings (odom.cc:92-106).
+
+    The reference's RANSAC params are read but never used by NanoGICP; they
+    are kept here for config compatibility only.
+    """
+
+    k_correspondences: int = 20
+    max_correspondence_distance: float = 1.0
+    max_iterations: int = 32
+    transformation_epsilon: float = 0.01
+    euclidean_fitness_epsilon: float = 0.01
+    # LM internals (lsq_registration_impl.hpp:53-61)
+    rotation_epsilon: float = 2e-3
+    lm_max_iterations: int = 10
+    lm_init_lambda_factor: float = 1e-9
+    ransac_iterations: int = 5
+    ransac_outlier_rejection_thresh: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GICPConfig:
+    min_num_points: int = 10
+    s2s: GICPStageConfig = GICPStageConfig(
+        k_correspondences=10, max_correspondence_distance=1.0
+    )
+    s2m: GICPStageConfig = GICPStageConfig(
+        k_correspondences=20, max_correspondence_distance=2.0
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionConfig:
+    """Range-image segmentation params (detection.cpp:72-129)."""
+
+    rows: int = 64
+    columns: int = 2048
+    organized: bool = True
+    ang_bottom: float = 45.0
+    ground_rows: int = 30
+    ground_angle_threshold: float = 10.0
+    minimum_range: float = 1.0
+    sensor_mount_angle: float = 0.0
+    theta: float = 0.1  # segmentation angle threshold [rad]
+    min_point_num: int = 15
+    valid_point_num: int = 10
+    min_line_num: int = 3
+    valid_line_num: int = 3
+    min_delta_z: float = 0.2
+    max_delta_z: float = 4.0
+    max_distance: float = 25.0
+    max_elevation: float = 2.0
+    max_dim_ratio: float = 7.0
+    residuum_height_ratio: float = 0.1
+    dilate_kernel_size: int = 2
+    # Residual-image scatter layout: "lidar" = panoramic row-major grid,
+    # "camera" = the fork's square organized depth-image grid
+    # (odom.cc:804-827). The dataclass default is explicit ("lidar"); the
+    # YAML loader, for compatibility with the fork's configs (which have
+    # no residualGrid key and hardcode the camera path for their 512x512
+    # clouds), still infers "camera" for square images UNLESS the YAML
+    # sets odomNode/detection/residualGrid — set it for square
+    # spinning-LiDAR rigs.
+    residual_grid: str = "lidar"
+    # Optional segmentation window (the fork hardcodes rows/cols 156..356 for
+    # its 512x512 Azure Kinect clouds, detection.cpp:514-516,569-571).
+    # ``None`` = full image (upstream behavior).
+    window_row_min: Optional[int] = None
+    window_row_max: Optional[int] = None
+    window_col_min: Optional[int] = None
+    window_col_max: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackingConfig:
+    """Tracker lifecycle params (tracking.cpp:16-25).
+
+    ``residuum_height_ratio`` is read by the tracker from the *detection*
+    namespace in the reference (tracking.cpp:24); it is mirrored here so
+    the tracker is self-contained.
+    """
+
+    max_no_hits: int = 10
+    min_dynamic_hits: int = 5
+    max_undefined_hits: int = 10
+    max_obj_velocity: float = 15.0
+    min_dist_from_origin: float = 0.75
+    residuum_height_ratio: float = 0.0
+    # capacity knob (no reference equivalent): how many gate-surviving
+    # (detection, track) pairs get an exact Sutherland-Hodgman OBB IoU per
+    # frame; pairs beyond the budget (farthest first) read as IoU 0. A
+    # 64x64-slot scene has well under 100 genuinely overlapping pairs.
+    iou_pair_budget: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class MapConfig:
+    """Global map node params (map.cc:52-62)."""
+
+    publish_full_map: bool = True
+    publish_freq: float = 1.0
+    use_voxel_filter: bool = True
+    leaf_size: float = 0.25
+    filter_bbox_history: bool = True
+    filter_margin: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityConfig:
+    """Static buffer capacities — no reference equivalent.
+
+    Every dynamically-sized container in the reference maps to one of these
+    fixed capacities plus a validity mask.
+    """
+
+    max_points: int = 32768  # post-preprocessing registration cloud
+    max_submap_points: int = 131072  # concatenated submap target
+    max_keyframes: int = 256  # keyframe ring capacity
+    max_keyframe_points: int = 16384  # per-keyframe stored (voxelized) cloud
+    max_objects: int = 32  # detections per frame
+    max_tracks: int = 32  # tracker slots
+    # candidate-root budget for the fused segment gates (segmentation.
+    # segment_objects): stats beyond the per-root size run dense over
+    # this many top-size roots instead of scattering over all H*W
+    segment_candidates: int = 256
+    bbox_history: int = 5  # rolling static bbox history per track
+    max_map_points: int = 2_000_000  # global map accumulator
+    nn_chunk: int = 1024  # source chunk for brute-force NN sweep
+
+
+@dataclasses.dataclass(frozen=True)
+class DDLOConfig:
+    # Global flags (odom.cc:199-203)
+    print_status: bool = False
+    dynamic_detection: bool = True
+    gravity_align: bool = False
+    odom_frame: str = "odom"
+    child_frame: str = "base_link"
+    # evaluation dumps (odomNode/evaluation/*, detection.cpp:114-116,936-954)
+    evaluate: bool = False
+    evaluation_dir: str = ""
+    evaluation_cfg_path: str = ""
+    # NEW vs reference: seed S2S with the previous scan-to-scan increment
+    # (constant-velocity motion model) instead of identity — stabilizes
+    # high angular rates; off by default for reference parity
+    initial_guess_motion: bool = False
+
+    preprocessing: PreprocessingConfig = PreprocessingConfig()
+    keyframe: KeyframeConfig = KeyframeConfig()
+    submap: SubmapConfig = SubmapConfig()
+    gicp: GICPConfig = GICPConfig()
+    detection: DetectionConfig = DetectionConfig()
+    tracking: TrackingConfig = TrackingConfig()
+    map: MapConfig = MapConfig()
+    capacity: CapacityConfig = CapacityConfig()
+
+    # numerics
+    dtype: str = "float32"  # point/compute dtype
+    solve_dtype: str = "float32"  # H/b accumulation dtype
+
+
+# ---------------------------------------------------------------------------
+# YAML loading (reference cfg/*.yaml compatibility)
+# ---------------------------------------------------------------------------
+
+
+def _get(d: Mapping[str, Any], path: str, default: Any) -> Any:
+    cur: Any = d
+    for key in path.split("/"):
+        if not isinstance(cur, Mapping) or key not in cur:
+            return default
+        cur = cur[key]
+    return cur
+
+
+def config_from_dict(raw: Mapping[str, Any], **overrides: Any) -> DDLOConfig:
+    """Build a :class:`DDLOConfig` from a reference-format YAML dict.
+
+    The key paths below are exactly the rosparam names read by the reference
+    (odom.cc:196-252, detection.cpp:72-129, tracking.cpp:16-25, map.cc:52-62).
+    """
+    g = lambda p, dflt: _get(raw, p, dflt)  # noqa: E731
+
+    def stage(ns: str, dflt_k: int, dflt_dist: float) -> GICPStageConfig:
+        return GICPStageConfig(
+            k_correspondences=g(f"odomNode/gicp/{ns}/kCorrespondences", dflt_k),
+            max_correspondence_distance=g(
+                f"odomNode/gicp/{ns}/maxCorrespondenceDistance", dflt_dist
+            ),
+            max_iterations=g(f"odomNode/gicp/{ns}/maxIterations", 64),
+            transformation_epsilon=g(f"odomNode/gicp/{ns}/transformationEpsilon", 5e-4),
+            euclidean_fitness_epsilon=g(
+                f"odomNode/gicp/{ns}/euclideanFitnessEpsilon", 0.01
+            ),
+            ransac_iterations=g(f"odomNode/gicp/{ns}/ransac/iterations", 0),
+            ransac_outlier_rejection_thresh=g(
+                f"odomNode/gicp/{ns}/ransac/outlierRejectionThresh", 0.05
+            ),
+        )
+
+    cfg = DDLOConfig(
+        print_status=g("printStatus", False),
+        dynamic_detection=g("dynamicDetection", True),
+        gravity_align=g("gravityAlign", False),
+        odom_frame=g("odomFrame", "odom"),
+        child_frame=g("childFrame", "base_link"),
+        evaluate=g("odomNode/evaluation/evaluate", False),
+        evaluation_dir=g("odomNode/evaluation/dir", ""),
+        evaluation_cfg_path=g("odomNode/evaluation/cfgPath", ""),
+        preprocessing=PreprocessingConfig(
+            downsampling=DownsamplingConfig(
+                use=g("odomNode/preprocessing/downsampling/use", False),
+                row=g("odomNode/preprocessing/downsampling/row", 1),
+                col=g("odomNode/preprocessing/downsampling/col", 1),
+            ),
+            crop_box=CropBoxConfig(
+                use=g("odomNode/preprocessing/cropBoxFilter/use", False),
+                size=g("odomNode/preprocessing/cropBoxFilter/size", 1.0),
+            ),
+            voxel_scan=VoxelFilterConfig(
+                use=g("odomNode/preprocessing/voxelFilter/scan/use", False),
+                res=g("odomNode/preprocessing/voxelFilter/scan/res", 0.05),
+            ),
+            voxel_submap=VoxelFilterConfig(
+                use=g("odomNode/preprocessing/voxelFilter/submap/use", False),
+                res=g("odomNode/preprocessing/voxelFilter/submap/res", 0.1),
+            ),
+        ),
+        keyframe=KeyframeConfig(
+            thresh_dist=g("odomNode/keyframe/threshD", 0.1),
+            thresh_rot=g("odomNode/keyframe/threshR", 1.0),
+        ),
+        submap=SubmapConfig(
+            knn=g("odomNode/submap/keyframe/knn", 10),
+            kcv=g("odomNode/submap/keyframe/kcv", 10),
+            kcc=g("odomNode/submap/keyframe/kcc", 10),
+        ),
+        gicp=GICPConfig(
+            min_num_points=g("odomNode/gicp/minNumPoints", 100),
+            s2s=stage("s2s", 10, 1.0),
+            s2m=stage("s2m", 20, 2.0),
+        ),
+        detection=DetectionConfig(
+            rows=g("odomNode/detection/rows", 128),
+            columns=g("odomNode/detection/columns", 1024),
+            organized=g("odomNode/detection/organized", True),
+            ang_bottom=g("odomNode/detection/ang_bottom", 45.0),
+            ground_rows=g("odomNode/detection/groundRows", 30),
+            ground_angle_threshold=g("odomNode/detection/groundAngleThreshold", 10.0),
+            minimum_range=g("odomNode/detection/minimumRange", 1.0),
+            sensor_mount_angle=g("odomNode/detection/sensorMountAngle", 0.0),
+            theta=g("odomNode/detection/theta", 0.1),
+            min_point_num=g("odomNode/detection/minPointNum", 15),
+            valid_point_num=g("odomNode/detection/validPointNum", 10),
+            min_line_num=g("odomNode/detection/minLineNum", 3),
+            valid_line_num=g("odomNode/detection/validLineNum", 3),
+            min_delta_z=g("odomNode/detection/minDeltaZ", 0.2),
+            max_delta_z=g("odomNode/detection/maxDeltaZ", 4.0),
+            max_distance=g("odomNode/detection/maxDistance", 25.0),
+            max_elevation=g("odomNode/detection/maxElevation", 2.0),
+            max_dim_ratio=g("odomNode/detection/maxDimRatio", 7.0),
+            residuum_height_ratio=g("odomNode/detection/residuumHeightRatio", 0.1),
+            dilate_kernel_size=g("odomNode/detection/dilateKernelSize", 2),
+            # reference YAMLs have no such key (the fork hardcodes the
+            # 512x512 camera path); default by the fork's square-image rule
+            residual_grid=g(
+                "odomNode/detection/residualGrid",
+                "camera"
+                if g("odomNode/detection/rows", 128)
+                == g("odomNode/detection/columns", 1024)
+                else "lidar",
+            ),
+        ),
+        tracking=TrackingConfig(
+            max_no_hits=g("odomNode/tracking/maxNoHits", 5),
+            min_dynamic_hits=g("odomNode/tracking/minDynamicHits", 3),
+            max_undefined_hits=g("odomNode/tracking/maxUndefinedHits", 10),
+            max_obj_velocity=g("odomNode/tracking/maxObjVelocity", 10.0),
+            min_dist_from_origin=g("odomNode/tracking/minDistFromOrigin", 0.5),
+            residuum_height_ratio=g("odomNode/detection/residuumHeightRatio", 0.0),
+        ),
+        map=MapConfig(
+            publish_full_map=g("mapNode/publishFullMap", False),
+            publish_freq=g("mapNode/publishFreq", 1.0),
+            use_voxel_filter=g("mapNode/useVoxelFilter", True),
+            leaf_size=g("mapNode/leafSize", 0.25),
+            filter_bbox_history=g("mapNode/filterBboxHistory", True),
+            filter_margin=g("mapNode/filterMargin", 0.0),
+        ),
+    )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def capacity_for_scan(H: int, W: int) -> CapacityConfig:
+    """Size the static buffers to a given organized-scan geometry.
+
+    The reference's containers grow to whatever the data needs; static
+    buffers must be picked up front. These heuristics bound the
+    post-voxel registration cloud by the raw scan size and scale the
+    submap/map accordingly.
+    """
+
+    def pow2(n: int, lo: int, hi: int) -> int:
+        p = lo
+        while p < n and p < hi:
+            p *= 2
+        return p
+
+    hw = H * W
+    max_points = pow2(hw // 2, 1024, 65536)
+    kf_points = pow2(hw // 4, 1024, 32768)
+    return CapacityConfig(
+        max_points=max_points,
+        max_submap_points=min(kf_points * 8, 262144),
+        max_keyframes=128,
+        max_keyframe_points=kf_points,
+        max_objects=32,
+        max_tracks=32,
+        nn_chunk=min(2048, max_points),
+    )
+
+
+def load_config(path: str, **overrides: Any) -> DDLOConfig:
+    """Load a reference-format YAML config file."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    return config_from_dict(raw or {}, **overrides)
+
+
+def doals_config(**overrides: Any) -> DDLOConfig:
+    """The DOALS config (cfg/DOALS.yaml) as a built-in preset."""
+    raw = {
+        "dynamicDetection": True,
+        "odomNode": {
+            "preprocessing": {
+                "downsampling": {"use": True, "row": 1, "col": 10},
+                "cropBoxFilter": {"use": True, "size": 1.0},
+                "voxelFilter": {
+                    "scan": {"use": True, "res": 0.3},
+                    "submap": {"use": True, "res": 0.5},
+                },
+            },
+            "keyframe": {"threshD": 5.0, "threshR": 45.0},
+            "submap": {"keyframe": {"knn": 10, "kcv": 10, "kcc": 10}},
+            "gicp": {
+                "minNumPoints": 10,
+                "s2s": {
+                    "kCorrespondences": 10,
+                    "maxCorrespondenceDistance": 1.0,
+                    "maxIterations": 32,
+                    "transformationEpsilon": 0.01,
+                    "euclideanFitnessEpsilon": 0.01,
+                },
+                "s2m": {
+                    "kCorrespondences": 20,
+                    "maxCorrespondenceDistance": 2.0,
+                    "maxIterations": 32,
+                    "transformationEpsilon": 0.01,
+                    "euclideanFitnessEpsilon": 0.01,
+                },
+            },
+            "detection": {
+                "rows": 64,
+                "columns": 2048,
+                "organized": True,
+                "ang_bottom": 45,
+                "groundRows": 30,
+                "groundAngleThreshold": 10,
+                "minimumRange": 1.0,
+                "theta": 0.1,
+                "minPointNum": 15,
+                "validPointNum": 10,
+                "minLineNum": 3,
+                "validLineNum": 3,
+                "minDeltaZ": 0.2,
+                "maxDeltaZ": 4.0,
+                "maxDistance": 25,
+                "maxElevation": 2.0,
+                "maxDimRatio": 7,
+                "residuumHeightRatio": 0.1,
+                "residualGrid": "lidar",
+            },
+            "tracking": {
+                "maxNoHits": 10,
+                "minDynamicHits": 5,
+                "maxUndefinedHits": 10,
+                "maxObjVelocity": 15,
+                "minDistFromOrigin": 0.75,
+            },
+        },
+        "mapNode": {
+            "publishFullMap": True,
+            "useVoxelFilter": True,
+            "leafSize": 0.25,
+            "filterBboxHistory": True,
+            "filterMargin": 0.5,
+        },
+    }
+    return config_from_dict(raw, **overrides)
+
+
+def bench_config(**overrides: Any) -> DDLOConfig:
+    """The DOALS preset at the headline-bench operating point (64x2048
+    scans, 16k preprocessed points, 64k submap, 64-slot keyframe store) —
+    shared by bench.py, chip_smoke.py, tools/accuracy.py and
+    tools/profile_stages.py
+    so the perf and accuracy artifacts pin the SAME configuration."""
+    import dataclasses
+
+    cfg = doals_config(**overrides)
+    return dataclasses.replace(
+        cfg,
+        # constant-velocity S2S seed: at steady state the previous
+        # increment is within epsilon of the next one, cutting S2S from
+        # ~4 iterations to 1-2; tools/accuracy.py replays THIS config,
+        # so the ATE artifact certifies the guess is accuracy-neutral
+        initial_guess_motion=True,
+        capacity=dataclasses.replace(
+            cfg.capacity,
+            max_points=16384,
+            max_submap_points=65536,
+            max_keyframes=64,
+            max_keyframe_points=8192,
+            nn_chunk=2048,
+            # the dense steady-state town segments into ~40 objects per
+            # scan (boxes + wall pieces); at 32 slots the tracker churns
+            # identities, statuses never leave UNDEFINED, and the
+            # keyframe clouds lose most static structure (the reference
+            # has UNBOUNDED object lists — fixed slots must be sized for
+            # the scene)
+            max_objects=64,
+            max_tracks=64,
+            # candidate-root budget for the fused segment gates: the
+            # dense (candidates, H*W) stat reductions scale linearly
+            # with this; 128 = 2x the object slots still satisfies the
+            # equivalence condition (a feasible object is lost only if
+            # 128 LARGER components pass the min-size gate first — the
+            # steady-state town peaks at ~40)
+            segment_candidates=128,
+        ),
+    )
+
+
+def kantplatz_config(**overrides: Any) -> DDLOConfig:
+    """The fork's kantplatz/Azure-Kinect config (cfg/ddlo.yaml) as a preset,
+    including the fork's hardcoded 512x512 segmentation window 156..356
+    (detection.cpp:514-516,569-571)."""
+    raw = {
+        "dynamicDetection": True,
+        "odomNode": {
+            "preprocessing": {
+                "downsampling": {"use": True, "row": 2, "col": 2},
+                "cropBoxFilter": {"use": True, "size": 1.0},
+                "voxelFilter": {
+                    "scan": {"use": True, "res": 0.1},
+                    "submap": {"use": True, "res": 0.1},
+                },
+            },
+            "keyframe": {"threshD": 1.0, "threshR": 0.1},
+            "submap": {"keyframe": {"knn": 10, "kcv": 10, "kcc": 10}},
+            "gicp": {
+                "minNumPoints": 10,
+                "s2s": {
+                    "kCorrespondences": 10,
+                    "maxCorrespondenceDistance": 1.0,
+                    "maxIterations": 32,
+                    "transformationEpsilon": 0.01,
+                },
+                "s2m": {
+                    "kCorrespondences": 20,
+                    "maxCorrespondenceDistance": 2.0,
+                    "maxIterations": 32,
+                    "transformationEpsilon": 0.01,
+                },
+            },
+            "detection": {
+                "rows": 512,
+                "columns": 512,
+                "organized": True,
+                "ang_bottom": 90,
+                "groundRows": 150,
+                "groundAngleThreshold": 80,
+                "minimumRange": 0.3,
+                "theta": 0.25,
+                "minPointNum": 5,
+                "validPointNum": 10,
+                "minLineNum": 2,
+                "validLineNum": 4,
+                "minDeltaZ": 0.3,
+                "maxDeltaZ": 2.0,
+                "maxDistance": 8.0,
+                "maxElevation": 8.0,
+                "maxDimRatio": 10,
+                "residuumHeightRatio": 0.3,
+                "residualGrid": "camera",
+            },
+            "tracking": {
+                "maxNoHits": 30,
+                "minDynamicHits": 5,
+                "maxUndefinedHits": 1,
+                "maxObjVelocity": 15,
+                "minDistFromOrigin": 0.75,
+            },
+        },
+        "mapNode": {
+            "publishFullMap": True,
+            "useVoxelFilter": True,
+            "leafSize": 0.25,
+            "filterBboxHistory": True,
+            "filterMargin": 0.0,
+        },
+    }
+    cfg = config_from_dict(raw, **overrides)
+    det = dataclasses.replace(
+        cfg.detection,
+        window_row_min=156,
+        window_row_max=356,
+        window_col_min=156,
+        window_col_max=356,
+    )
+    return dataclasses.replace(cfg, detection=det)

@@ -4,7 +4,7 @@
 Standalone — runs on a ROS host (or anywhere the pure-python ``rosbags``
 package is installed) WITHOUT importing jax or the framework, so it can
 live next to the bags. Produces the exact format
-``dynamic_direct_lidar_odometry_tpu.io.dataset.ScanSequence`` loads:
+``dynamic_direct_lidar_odometry.io.dataset.ScanSequence`` loads:
 
   points: (S, H*W, 3) f32 sensor-frame, NaN for no-return
   mask:   (S, H*W)    bool
@@ -39,7 +39,7 @@ def _load_pc2():
     The module itself is numpy-only."""
     path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "dynamic_direct_lidar_odometry_tpu", "io", "pointcloud2.py",
+        "dynamic_direct_lidar_odometry", "io", "pointcloud2.py",
     )
     spec = importlib.util.spec_from_file_location("_ddlo_pc2", path)
     mod = importlib.util.module_from_spec(spec)

@@ -17,9 +17,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu import pipeline
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry import pipeline
+from dynamic_direct_lidar_odometry.io import synthetic
 
 
 def golden_cfg(organized: bool = True):

@@ -6,7 +6,7 @@ coordination service, builds the GLOBAL (dp, pt) mesh, assembles its
 local slice of a deterministic batch into global arrays, runs the
 sharded batched GICP align, and (process 0) dumps the gathered poses.
 
-This is the process topology of a real multi-host TPU slice — one
+This is the process topology of a real multi-host deployment — one
 process per host, dp across hosts, pt (GN psum groups) within a host —
 minus the hardware (SURVEY.md §5 'Distributed communication backend').
 """
@@ -35,8 +35,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
-    from dynamic_direct_lidar_odometry_tpu.parallel import distributed, sharding
+    from dynamic_direct_lidar_odometry.ops import covariance, gicp
+    from dynamic_direct_lidar_odometry.parallel import distributed, sharding
 
     distributed.initialize(args.coordinator, args.nproc, args.pid)
     assert jax.process_count() == args.nproc

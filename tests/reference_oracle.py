@@ -1,7 +1,7 @@
 """Float64 NumPy oracle of the reference's GICP numerics.
 
-An independent re-implementation (NOT a port of the TPU code paths) of
-exactly what the reference computes, used to prove the JAX/TPU GICP
+An independent re-implementation (NOT a port of the JAX code paths) of
+exactly what the reference computes, used to prove the JAX GICP
 follows the reference's Levenberg-Marquardt trajectory:
 
 - ``plane_covariances``  = NanoGICP::calculate_covariances with

@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dynamic_direct_lidar_odometry_tpu.ops import bbox as bbox_ops
-from dynamic_direct_lidar_odometry_tpu.ops import hungarian
+from dynamic_direct_lidar_odometry.ops import bbox as bbox_ops
+from dynamic_direct_lidar_odometry.ops import hungarian
 
 
 @pytest.mark.parametrize("n,m,seed", [(5, 5, 0), (8, 8, 1), (3, 7, 2), (7, 3, 3)])

@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial import cKDTree
 
-from dynamic_direct_lidar_odometry_tpu.core import cloud as cloud_lib
-from dynamic_direct_lidar_odometry_tpu.ops import covariance
+from dynamic_direct_lidar_odometry.core import cloud as cloud_lib
+from dynamic_direct_lidar_odometry.ops import covariance
 
 
 def _ref_plane_covs(pts, k):
@@ -58,12 +58,11 @@ def test_masked_points_get_identity():
 
 
 def test_window_self_covariances_on_morton_cloud():
-    """The TPU block-window fast path (backend-gated in
-    plane_covariances, but backend-agnostic math — exercised directly
-    here): on a Morton-ordered voxel cloud its PLANE normals must agree
+    """The GPU block-window path (platform-gated in plane_covariances,
+    but platform-agnostic math — exercised directly here): on a Morton-ordered voxel cloud its PLANE normals must agree
     with the exact k-NN covariances for nearly all points, and invalid
     SENTINEL rows must never enter a real neighborhood."""
-    from dynamic_direct_lidar_odometry_tpu.ops import filters, knn as knn_ops
+    from dynamic_direct_lidar_odometry.ops import filters, knn as knn_ops
 
     rng = np.random.default_rng(3)
     n = 6000
@@ -84,7 +83,7 @@ def test_window_self_covariances_on_morton_cloud():
     cov_w = covariance.regularize_plane(
         covariance._window_self_covariances(pts, k)
     )
-    idx, _ = knn_ops.knn_best(pts, pts, k)
+    idx, _ = knn_ops.knn(pts, pts, k)
     neigh = pts[idx]
     centered = neigh - neigh.mean(axis=1, keepdims=True)
     cov_e = covariance.regularize_plane(

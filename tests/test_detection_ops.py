@@ -3,8 +3,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
-from dynamic_direct_lidar_odometry_tpu.ops import bbox, projection, segmentation
+from dynamic_direct_lidar_odometry.io import synthetic
+from dynamic_direct_lidar_odometry.ops import bbox, projection, segmentation
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 
-from dynamic_direct_lidar_odometry_tpu.utils import evaldump
+from dynamic_direct_lidar_odometry.utils import evaldump
 
 
 def test_eigen_matrix_str_identity():

@@ -2,8 +2,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.core.cloud import SENTINEL
-from dynamic_direct_lidar_odometry_tpu.ops import filters
+from dynamic_direct_lidar_odometry.core.cloud import SENTINEL
+from dynamic_direct_lidar_odometry.ops import filters
 
 
 def test_rowcol_downsample_mask():

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from dynamic_direct_lidar_odometry_tpu.core import cloud as cloud_lib
-from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
+from dynamic_direct_lidar_odometry.core import cloud as cloud_lib
+from dynamic_direct_lidar_odometry.ops import covariance, gicp
 
 
 def make_structured_scene(rng, n=3000):

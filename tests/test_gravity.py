@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from dynamic_direct_lidar_odometry_tpu.odometry import odometry
+from dynamic_direct_lidar_odometry.odometry import odometry
 
 
 def test_level_sensor_is_identity():
@@ -44,9 +44,9 @@ def test_imu_lidar_extrinsic_applied():
 def test_runner_seeds_gravity_aligned_pose():
     import dataclasses
 
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-    from dynamic_direct_lidar_odometry_tpu.io import dataset
-    from dynamic_direct_lidar_odometry_tpu import runner
+    from dynamic_direct_lidar_odometry import config as cfg_lib
+    from dynamic_direct_lidar_odometry.io import dataset
+    from dynamic_direct_lidar_odometry import runner
 
     cfg = cfg_lib.doals_config()
     cfg = dataclasses.replace(

@@ -9,9 +9,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu import pipeline
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry import pipeline
+from dynamic_direct_lidar_odometry.io import synthetic
 
 
 def small_kantplatz():
@@ -83,10 +83,65 @@ def test_kantplatz_pipeline_runs_square_image():
     assert np.all(lab[:8, :] == -1) and np.all(lab[57:, :] == -1)
 
 
-def test_kantplatz_config_loads_reference_yaml():
-    cfg = cfg_lib.load_config(
-        "/root/reference/dynamic_direct_lidar_odometry/cfg/ddlo.yaml"
-    )
+# The reference's cfg/ddlo.yaml layout, reduced to the keys the
+# kantplatz preset encodes; like the reference file, its DOALS top half
+# is commented out, which the loader must skip.
+REFERENCE_DDLO_YAML = """\
+# dynamicDetection: true
+# odomNode:
+#   detection:
+#     rows: 64
+#     columns: 2048
+dynamicDetection: true
+odomNode:
+  preprocessing:
+    downsampling: {use: true, row: 2, col: 2}
+    voxelFilter:
+      scan: {use: true, res: 0.1}
+      submap: {use: true, res: 0.1}
+  keyframe: {threshD: 1.0, threshR: 0.1}
+  gicp:
+    minNumPoints: 10
+    s2s:
+      kCorrespondences: 10
+      maxCorrespondenceDistance: 1.0
+      maxIterations: 32
+      transformationEpsilon: 0.01
+    s2m:
+      kCorrespondences: 20
+      maxCorrespondenceDistance: 2.0
+      maxIterations: 32
+      transformationEpsilon: 0.01
+  detection:
+    rows: 512
+    columns: 512
+    ang_bottom: 90
+    groundRows: 150
+    groundAngleThreshold: 80
+    minimumRange: 0.3
+    residualGrid: camera
+"""
+
+
+def test_kantplatz_config_loads_reference_yaml(tmp_path):
+    path = tmp_path / "ddlo.yaml"
+    path.write_text(REFERENCE_DDLO_YAML)
+    cfg = cfg_lib.load_config(str(path))
     assert cfg.detection.rows == 512 and cfg.detection.columns == 512
     assert cfg.detection.ground_rows == 150
     assert cfg.gicp.s2m.k_correspondences == 20
+    # the preset encodes the same reference values
+    preset = cfg_lib.kantplatz_config()
+    for sect, field in [
+        ("detection", "ground_rows"),
+        ("detection", "residual_grid"),
+        ("preprocessing", "voxel_scan"),
+        ("preprocessing", "voxel_submap"),
+        ("preprocessing", "downsampling"),
+        ("keyframe", None),
+        ("gicp", None),
+    ]:
+        a, b = getattr(cfg, sect), getattr(preset, sect)
+        if field is not None:
+            a, b = getattr(a, field), getattr(b, field)
+        assert a == b, (sect, field, a, b)

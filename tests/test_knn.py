@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.spatial import cKDTree
 
-from dynamic_direct_lidar_odometry_tpu.core.cloud import SENTINEL
-from dynamic_direct_lidar_odometry_tpu.ops import knn as knn_ops
+from dynamic_direct_lidar_odometry.core.cloud import SENTINEL
+from dynamic_direct_lidar_odometry.ops import knn as knn_ops
 
 
 def _clouds(seed, q=777, t=1531):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.mapping import mapper
+from dynamic_direct_lidar_odometry.mapping import mapper
 
 
 def _cloud(rng, n, lo=-10, hi=10):

@@ -66,8 +66,8 @@ def _single_process_reference():
     import jax
     import jax.numpy as jnp
 
-    from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
-    from dynamic_direct_lidar_odometry_tpu.parallel import sharding
+    from dynamic_direct_lidar_odometry.ops import covariance, gicp
+    from dynamic_direct_lidar_odometry.parallel import sharding
 
     B, N = 8, 256
     rng = np.random.default_rng(42)

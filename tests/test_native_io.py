@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from dynamic_direct_lidar_odometry_tpu.io import native, pcd
+from dynamic_direct_lidar_odometry.io import native, pcd
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no native toolchain"
@@ -85,7 +85,7 @@ def test_native_agrees_with_python_reader_on_saved_map(tmp_path):
 def test_native_pcd_writer_roundtrip(tmp_path):
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.io import native, pcd
+    from dynamic_direct_lidar_odometry.io import native, pcd
 
     if not native.available():
         import pytest
@@ -104,7 +104,7 @@ def test_native_pcd_writer_roundtrip(tmp_path):
 def test_save_pcd_dispatches_native(tmp_path):
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.io import pcd
+    from dynamic_direct_lidar_odometry.io import pcd
 
     pts = np.random.default_rng(1).uniform(-5, 5, (100, 3)).astype(np.float32)
     path = str(tmp_path / "a.pcd")

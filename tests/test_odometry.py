@@ -4,10 +4,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
-from dynamic_direct_lidar_odometry_tpu.odometry import keyframes as kf
-from dynamic_direct_lidar_odometry_tpu.odometry import odometry, preprocess
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry.io import synthetic
+from dynamic_direct_lidar_odometry.odometry import keyframes as kf
+from dynamic_direct_lidar_odometry.odometry import odometry, preprocess
 
 
 def small_cfg(**cap_overrides):
@@ -147,7 +147,7 @@ def test_gather_submap_compacts_blocks():
     import jax.numpy as jnp
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.odometry import keyframes as kf
+    from dynamic_direct_lidar_odometry.odometry import keyframes as kf
 
     store = kf.empty_store(4, 8)
     rng = np.random.default_rng(0)
@@ -179,7 +179,7 @@ def test_gather_submap_capacity_overflow_drops_tail():
     import jax.numpy as jnp
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.odometry import keyframes as kf
+    from dynamic_direct_lidar_odometry.odometry import keyframes as kf
 
     store = kf.empty_store(2, 8)
     rng = np.random.default_rng(1)
@@ -251,8 +251,8 @@ def test_motion_model_guess_stabilizes_fast_rotation():
     import numpy as np
     import jax.numpy as jnp
 
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib, pipeline
-    from dynamic_direct_lidar_odometry_tpu.io import synthetic
+    from dynamic_direct_lidar_odometry import config as cfg_lib, pipeline
+    from dynamic_direct_lidar_odometry.io import synthetic
 
     base = cfg_lib.doals_config()
     base = dataclasses.replace(

@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu import pipeline
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
-from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
-from dynamic_direct_lidar_odometry_tpu.parallel import sharding
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry import pipeline
+from dynamic_direct_lidar_odometry.io import synthetic
+from dynamic_direct_lidar_odometry.ops import covariance, gicp
+from dynamic_direct_lidar_odometry.parallel import sharding
 
 
 pytestmark = pytest.mark.skipif(
@@ -177,9 +177,9 @@ def test_replay_batch_matches_single_stream():
     import numpy as np
     import jax.numpy as jnp
 
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib, pipeline
-    from dynamic_direct_lidar_odometry_tpu.io import dataset
-    from dynamic_direct_lidar_odometry_tpu.parallel import replay, sharding
+    from dynamic_direct_lidar_odometry import config as cfg_lib, pipeline
+    from dynamic_direct_lidar_odometry.io import dataset
+    from dynamic_direct_lidar_odometry.parallel import replay, sharding
 
     cfg = cfg_lib.doals_config()
     cfg = dataclasses.replace(

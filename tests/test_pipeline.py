@@ -4,10 +4,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu import pipeline
-from dynamic_direct_lidar_odometry_tpu.io import synthetic
-from dynamic_direct_lidar_odometry_tpu.tracking.tracker import DYNAMIC
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry import pipeline
+from dynamic_direct_lidar_odometry.io import synthetic
+from dynamic_direct_lidar_odometry.tracking.tracker import DYNAMIC
 
 
 def ddlo_cfg():
@@ -229,8 +229,8 @@ def test_device_hull_cache_invariant():
     ever skips recomputation when its inputs (store, alpha) are
     unchanged, so staleness is impossible by construction; this pins the
     dirty-flag wiring (update_keyframes must mark inserts)."""
-    from dynamic_direct_lidar_odometry_tpu.io import synthetic
-    from dynamic_direct_lidar_odometry_tpu.odometry import keyframes as kf
+    from dynamic_direct_lidar_odometry.io import synthetic
+    from dynamic_direct_lidar_odometry.odometry import keyframes as kf
 
     cfg = ddlo_cfg()
     # tiny keyframe distance so inserts fire mid-sequence

@@ -17,7 +17,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from dynamic_direct_lidar_odometry_tpu.io import pointcloud2 as pc2
+from dynamic_direct_lidar_odometry.io import pointcloud2 as pc2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -1,4 +1,4 @@
-"""Reference-numerics parity: the TPU GICP vs a float64 oracle of the
+"""Reference-numerics parity: the JAX GICP vs a float64 oracle of the
 reference's exact algorithm (tests/reference_oracle.py, a NumPy port of
 nano_gicp_impl.hpp:235-441 + lsq_registration_impl.hpp:96-232).
 
@@ -15,8 +15,8 @@ import numpy as np
 import jax.numpy as jnp
 
 import reference_oracle as oracle
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry.ops import covariance, gicp
 
 
 def structured_scene(n=1800, seed=0):
@@ -161,13 +161,13 @@ def test_lm_iteration_count_parity():
 def test_mini_dlo_trajectory_ate():
     """Full-chain numerics: an oracle-driven mini-DLO (S2S -> S2M against
     the init keyframe, covariance reuse and guess propagation exactly as
-    odom.cc:745-851) vs the TPU odometry core over a synthetic sequence.
+    odom.cc:745-851) vs the JAX odometry core over a synthetic sequence.
     ATE must be far under the 5 cm BASELINE.md bar."""
     import jax
 
-    from dynamic_direct_lidar_odometry_tpu.io import synthetic
-    from dynamic_direct_lidar_odometry_tpu.odometry import odometry
-    from dynamic_direct_lidar_odometry_tpu.odometry import preprocess as prep
+    from dynamic_direct_lidar_odometry.io import synthetic
+    from dynamic_direct_lidar_odometry.odometry import odometry
+    from dynamic_direct_lidar_odometry.odometry import preprocess as prep
 
     H, W = 32, 512
     cfg = cfg_lib.doals_config()
@@ -198,18 +198,18 @@ def test_mini_dlo_trajectory_ate():
         for T in gt
     ]
 
-    # ---- TPU odometry chain ----
+    # ---- JAX odometry chain ----
     state = odometry.init_state(
         cfg, jnp.asarray(scans[0][0]), jnp.asarray(scans[0][1])
     )
     kf0_pts = np.asarray(state.store.points[0])
     kf0_mask = np.asarray(state.store.masks[0])
-    tpu_poses = []
+    jax_poses = []
     for pts, mask in scans[1:]:
         state, out = odometry.step(
             cfg, state, jnp.asarray(pts), jnp.asarray(mask)
         )
-        tpu_poses.append(np.asarray(out.T))
+        jax_poses.append(np.asarray(out.T))
     # premise: no new keyframes, so both chains register S2M against the
     # init keyframe only
     assert int(jax.device_get(state.store.count)) == 1
@@ -258,11 +258,11 @@ def test_mini_dlo_trajectory_ate():
         ora_poses.append(T.copy())
         prev, prev_covs = cur, cur_covs
 
-    tpu_xyz = np.stack([P[:3, 3] for P in tpu_poses])
+    jax_xyz = np.stack([P[:3, 3] for P in jax_poses])
     ora_xyz = np.stack([P[:3, 3] for P in ora_poses])
-    ate = float(np.sqrt(np.mean(np.sum((tpu_xyz - ora_xyz) ** 2, axis=1))))
+    ate = float(np.sqrt(np.mean(np.sum((jax_xyz - ora_xyz) ** 2, axis=1))))
     assert ate < 0.05, f"ATE vs reference-numerics oracle: {ate:.4f} m"
     # rotation agreement as well
-    for Pt, Po in zip(tpu_poses, ora_poses):
+    for Pt, Po in zip(jax_poses, ora_poses):
         dR = np.abs(Pt[:3, :3] @ Po[:3, :3].T - np.eye(3)).max()
         assert dR < 0.02, dR

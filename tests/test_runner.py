@@ -6,9 +6,9 @@ import os
 
 import numpy as np
 
-from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-from dynamic_direct_lidar_odometry_tpu import runner
-from dynamic_direct_lidar_odometry_tpu.io import dataset, pcd
+from dynamic_direct_lidar_odometry import config as cfg_lib
+from dynamic_direct_lidar_odometry import runner
+from dynamic_direct_lidar_odometry.io import dataset, pcd
 
 
 def _small_cfg(H, W):
@@ -180,7 +180,7 @@ def test_nan_watchdog_rolls_back_pipelined_loop(monkeypatch):
     the last good state (failure-detection path of the pipelined loop)."""
     import jax.numpy as jnp
 
-    from dynamic_direct_lidar_odometry_tpu import pipeline
+    from dynamic_direct_lidar_odometry import pipeline
 
     seq = _seq(n=8)
     cfg = _small_cfg(seq.H, seq.W)
@@ -216,7 +216,7 @@ def test_sequence_roundtrip(tmp_path):
 
 
 def test_cli_synth_and_run(tmp_path):
-    from dynamic_direct_lidar_odometry_tpu import cli
+    from dynamic_direct_lidar_odometry import cli
 
     path = os.path.join(tmp_path, "seq.npz")
     assert cli.main([

@@ -4,7 +4,7 @@ import pytest
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from dynamic_direct_lidar_odometry_tpu.core import se3
+from dynamic_direct_lidar_odometry.core import se3
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

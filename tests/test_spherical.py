@@ -17,7 +17,7 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.ops import projection
+from dynamic_direct_lidar_odometry.ops import projection
 
 GOLDEN = os.path.join(
     os.path.dirname(__file__), "golden", "spherical_32x512_seed7.npz"

@@ -2,11 +2,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.config import TrackingConfig
-from dynamic_direct_lidar_odometry_tpu.ops import kalman
-from dynamic_direct_lidar_odometry_tpu.ops.bbox import Objects
-from dynamic_direct_lidar_odometry_tpu.tracking import tracker
-from dynamic_direct_lidar_odometry_tpu.tracking.tracker import (
+from dynamic_direct_lidar_odometry.config import TrackingConfig
+from dynamic_direct_lidar_odometry.ops import kalman
+from dynamic_direct_lidar_odometry.ops.bbox import Objects
+from dynamic_direct_lidar_odometry.tracking import tracker
+from dynamic_direct_lidar_odometry.tracking.tracker import (
     DYNAMIC,
     STATIC,
     UNDEFINED,

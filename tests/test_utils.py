@@ -5,8 +5,8 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from dynamic_direct_lidar_odometry_tpu.io import pcd
-from dynamic_direct_lidar_odometry_tpu.utils import checkpoint, profiling, trajectory
+from dynamic_direct_lidar_odometry.io import pcd
+from dynamic_direct_lidar_odometry.utils import checkpoint, profiling, trajectory
 
 
 def test_accumulator_stats():
@@ -104,7 +104,7 @@ def test_pcd_roundtrip_binary_and_ascii(tmp_path):
 def test_viz_debug_images(tmp_path):
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.utils import viz
+    from dynamic_direct_lidar_odometry.utils import viz
 
     rng = np.random.default_rng(0)
     r = rng.uniform(0, 30, (16, 64))
@@ -127,8 +127,8 @@ def test_viz_debug_images(tmp_path):
 def test_debug_dashboard_renders():
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu import runner
-    from dynamic_direct_lidar_odometry_tpu.utils import profiling
+    from dynamic_direct_lidar_odometry import runner
+    from dynamic_direct_lidar_odometry.utils import profiling
 
     prof = profiling.Profiler()
     prof["total"].add(12.5)
@@ -143,7 +143,7 @@ def test_debug_dashboard_renders():
 def test_viz_dilate():
     import numpy as np
 
-    from dynamic_direct_lidar_odometry_tpu.utils import viz
+    from dynamic_direct_lidar_odometry.utils import viz
 
     img = np.zeros((8, 8))
     img[4, 4] = 1.0

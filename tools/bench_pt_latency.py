@@ -1,8 +1,8 @@
 """Point-parallel (pt) per-step LATENCY curve on the virtual CPU mesh.
 
 The pt mesh axis exists to cut single-stream latency: the GICP point
-loops shard over pt with psum'd 6x6/6x1 normal equations — the ICI
-analogue of the reference's OpenMP threads over points
+loops shard over pt with psum'd 6x6/6x1 normal equations — the
+cross-device analogue of the reference's OpenMP threads over points
 (nano_gicp_impl.hpp:249,292). The multichip dryrun proves it compiles
 and matches the unsharded step; THIS tool records what round 3 lacked,
 a measured per-step latency at pt = 1 / 2 / 4:
@@ -11,11 +11,11 @@ a measured per-step latency at pt = 1 / 2 / 4:
   * a registration-only align where the N_src x N_tgt NN sweep dominates
     (batched_align, B=1), the term pt actually divides.
 
-Relative numbers are the point (this host has 2 physical cores, so
-wall-clock gains saturate at ~2x; per-device sweep FLOPs still drop
-pt-fold — on a real v5e slice the same program rides ICI).
+Relative numbers are the point (on a CPU host the wall-clock gains
+saturate at the physical core count; per-device sweep FLOPs still drop
+pt-fold — on real GPUs the same program's collectives ride NVLink).
 
-    env PYTHONPATH= JAX_PLATFORMS=cpu \
+    env JAX_PLATFORMS=cpu \
         XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/bench_pt_latency.py [--json out.json]
 """
@@ -43,7 +43,7 @@ import numpy as np
 
 
 def _cfg():
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
+    from dynamic_direct_lidar_odometry import config as cfg_lib
 
     cfg = cfg_lib.doals_config()
     # CPU-tractable scale: small image (detection is replicated across pt
@@ -73,8 +73,8 @@ def _cfg():
 
 def bench_pipeline_step(cfg, pt: int, n_steps: int = 6):
     """ms/step of the FULL pipeline at dp=1, given pt devices."""
-    from dynamic_direct_lidar_odometry_tpu.io import synthetic
-    from dynamic_direct_lidar_odometry_tpu.parallel import sharding
+    from dynamic_direct_lidar_odometry.io import synthetic
+    from dynamic_direct_lidar_odometry.parallel import sharding
 
     world = synthetic.World.town(seed=0, n_static=6)
     H, W = cfg.detection.rows, cfg.detection.columns
@@ -119,8 +119,8 @@ def bench_pipeline_step(cfg, pt: int, n_steps: int = 6):
 
 def bench_align(pt: int, n_src: int = 4096, n_tgt: int = 8192, reps: int = 5):
     """ms/align of a point-sharded registration (B=1)."""
-    from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
-    from dynamic_direct_lidar_odometry_tpu.parallel import sharding
+    from dynamic_direct_lidar_odometry.ops import covariance, gicp
+    from dynamic_direct_lidar_odometry.parallel import sharding
 
     rng = np.random.default_rng(1)
     src = rng.uniform(-8, 8, (1, n_src, 3)).astype(np.float32)

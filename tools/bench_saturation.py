@@ -1,8 +1,8 @@
-"""Chip-saturation curves: how much of one chip the single stream uses.
+"""Device-saturation curves: how much of one GPU the single stream uses.
 
 The headline bench is a SINGLE sequential stream (the reference's
-process model, one sensor per node) — at ~15 ms/scan the chip is mostly
-idle between the small kernels of one 16k-point scan. This tool
+process model, one sensor per node), whose small kernels of one
+16k-point scan may leave the device idle between them. This tool
 quantifies the headroom, the BASELINE.json north-star unit
 ("registrations/s/chip"), by sweeping batch size on the real chip:
 
@@ -15,11 +15,11 @@ quantifies the headroom, the BASELINE.json north-star unit
 
 The ratio saturated-rate / single-rate is the honest motivation for
 dp-mode (fleet replay / config sweeps): it is throughput the chip
-already has that one stream cannot express. Writes SCALING_r05.json's
-"saturation" section (merged over the r04 process-tax matrix, which
-remains the multi-host evidence).
+already has that one stream cannot express. Writes the curves as JSON
+(results/saturation.json).
 
-Run on the real chip:  python -u tools/bench_saturation.py
+Run on the GPU:  python -u tools/bench_saturation.py
+(DDLO_SAT_SMALL=1 shrinks every size for a CPU rehearsal.)
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/ddlo_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -45,13 +41,14 @@ def bench_registrations(batches, n_points=4096, iters_budget=512):
     """Independent scan-pair registrations, vmapped on one chip.
 
     Same shapes/settings as tools/bench_registrations.py (n=4096,
-    max_iterations=16) so the numbers line up with SCALING_r04's
-    single-chip anchor.
+    max_iterations=16) so the numbers line up with its anchor.
     """
-    from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
-    from dynamic_direct_lidar_odometry_tpu.utils import devtime
+    from dynamic_direct_lidar_odometry.ops import covariance, gicp
+    from dynamic_direct_lidar_odometry.utils import devtime
 
-    settings = gicp.GICPSettings(max_iterations=16, compute_residuals=False)
+    settings = gicp.GICPSettings(
+        max_iterations=16, compute_residuals=False, nn_impl="sparse"
+    )
     valign = jax.jit(jax.vmap(
         lambda sp, sm, sc, tp, tm, tc, g: gicp.align(
             sp, sm, sc, tp, tm, tc, g, settings
@@ -72,14 +69,13 @@ def bench_registrations(batches, n_points=4096, iters_budget=512):
         sc = vcov(sp, mask)
         tc = vcov(tp, mask)
         guess = jnp.broadcast_to(jnp.eye(4), (B, 4, 4))
-        out = valign(sp, mask, sc, tp, mask, tc, guess)
-        fetch_ov = devtime.fetch_overhead(out)
+        out = devtime.sync(valign(sp, mask, sc, tp, mask, tc, guess))
         iters = max(3, iters_budget // max(B, 1))
         t0 = time.perf_counter()
         for _ in range(iters):
             out = valign(sp, mask, sc, tp, mask, tc, guess)
         devtime.sync(out)
-        dt = max(time.perf_counter() - t0 - fetch_ov, 1e-9) / iters
+        dt = (time.perf_counter() - t0) / iters
         rps = B / dt
         conv = int(jnp.sum(out.converged))
         row = {
@@ -101,10 +97,10 @@ def bench_pipeline_streams(batches, n_scans=16, small=False):
     real per-stream work); rate = B * timed_scans / wall."""
     import dataclasses
 
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-    from dynamic_direct_lidar_odometry_tpu import pipeline
-    from dynamic_direct_lidar_odometry_tpu.io import dataset
-    from dynamic_direct_lidar_odometry_tpu.utils import devtime
+    from dynamic_direct_lidar_odometry import config as cfg_lib
+    from dynamic_direct_lidar_odometry import pipeline
+    from dynamic_direct_lidar_odometry.io import dataset
+    from dynamic_direct_lidar_odometry.utils import devtime
 
     cfg = cfg_lib.bench_config()
     if small:  # CPU smoke: structure only, tiny shapes
@@ -151,13 +147,12 @@ def bench_pipeline_streams(batches, n_scans=16, small=False):
         for s in scans[:3]:
             state, _ = vstep(state, *s)
         devtime.sync(state)
-        fetch_ov = devtime.fetch_overhead(state)
         timed = scans[3:]
         t0 = time.perf_counter()
         for s in timed:
             state, _ = vstep(state, *s)
         devtime.sync(state)
-        dt = max(time.perf_counter() - t0 - fetch_ov, 1e-9)
+        dt = time.perf_counter() - t0
         rate = B * len(timed) / dt
         row = {
             "batch_streams": B,
@@ -172,26 +167,27 @@ def bench_pipeline_streams(batches, n_scans=16, small=False):
 
 
 def main():
-    if (
-        jax.default_backend() != "tpu"
-        and os.environ.get("DDLO_BENCH_ALLOW_CPU") != "1"
-    ):
-        raise RuntimeError(
-            f"saturation bench wants the TPU, got {jax.default_backend()}"
-        )
-    small = os.environ.get("DDLO_SAT_SMALL") == "1"  # CPU smoke mode
+    from dynamic_direct_lidar_odometry.utils import devtime
+
+    small = os.environ.get("DDLO_SAT_SMALL") == "1"  # CPU rehearsal
+    dev = jax.devices()[0]
+    if dev.platform != "gpu" and not small:
+        raise SystemExit(f"saturation bench needs a GPU, JAX found {dev.platform}")
+    devtime.enable_compile_cache()
     reg_batches = [1, 8, 32] if small else [1, 8, 32, 128, 256]
     pipe_batches = [1, 2] if small else [1, 8, 32]
     n_points = 512 if small else 4096
 
-    print(f"backend: {jax.default_backend()}", flush=True)
+    print(f"device: {dev.platform} {dev.device_kind}", flush=True)
     reg = bench_registrations(reg_batches, n_points=n_points)
     pipe = bench_pipeline_streams(
         pipe_batches, n_scans=8 if small else 16, small=small
     )
 
     sat = {
-        "unit": "single chip (v5e), vmapped independent work",
+        "unit": "one device, vmapped independent work",
+        "platform": dev.platform,
+        "device_kind": dev.device_kind,
         "registrations_vs_batch": reg,
         "pipeline_streams_vs_batch": pipe,
         "reg_saturation_x": round(
@@ -201,27 +197,11 @@ def main():
             pipe[-1]["aggregate_scans_per_s"]
             / pipe[0]["aggregate_scans_per_s"], 2
         ),
-        "note": "saturated/single ratio = throughput one sequential "
-                "stream leaves on the table. MEASURED OUTCOME (r05): "
-                "bare registrations saturate ~4x at batch 8 (the "
-                "north-star reg/s/chip number), but the FULL pipeline "
-                "batches at ~0.9x — its 16k-point kernels already fill "
-                "the chip, so dp-mode's value on ONE chip is for "
-                "registration-style workloads; full-pipeline fleet "
-                "replay needs more chips, not more batch",
     }
-
-    out_path = os.path.join(REPO, "SCALING_r05.json")
-    merged = {}
-    prev = os.path.join(REPO, "SCALING_r04.json")
-    if os.path.exists(prev):
-        with open(prev) as f:
-            merged = json.load(f)
-        merged["carried_from"] = "SCALING_r04.json (process-tax matrix + "
-        merged["carried_from"] += "pt-latency curve, unchanged)"
-    merged["saturation"] = sat
+    out_path = os.path.join(REPO, "results", "saturation.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
-        json.dump(merged, f, indent=1)
+        json.dump(sat, f, indent=1)
     print(json.dumps(sat, indent=1))
     print(f"wrote {out_path}")
 

@@ -13,10 +13,10 @@ import numpy as np
 
 
 def main():
-    from dynamic_direct_lidar_odometry_tpu import config as cfg_lib
-    from dynamic_direct_lidar_odometry_tpu.io import synthetic
-    from dynamic_direct_lidar_odometry_tpu.odometry import preprocess as prep
-    from dynamic_direct_lidar_odometry_tpu.ops import covariance, gicp
+    from dynamic_direct_lidar_odometry import config as cfg_lib
+    from dynamic_direct_lidar_odometry.io import synthetic
+    from dynamic_direct_lidar_odometry.odometry import preprocess as prep
+    from dynamic_direct_lidar_odometry.ops import covariance, gicp
 
     cfg = cfg_lib.doals_config()
     H, W = cfg.detection.rows, cfg.detection.columns
